@@ -198,6 +198,17 @@ void spdf_close(void* handle) { delete (DocHandle*)handle; }
 // (ctypes callbacks re-acquire the GIL via PyGILState_Ensure).
 void spdf_set_jpx_decoder(JpxDecodeCb cb) { g_jpx_decode_cb = cb; }
 
+// Directory of the packaged DejaVu fonts that stand in for non-embedded
+// fonts. Called once at library load by the Python binding.
+void spdf_set_font_dir(const char* dir) { g_font_dir = dir ? dir : ""; }
+
+// PIL-parity bilinear resize of one (sh, sw) 8-bit gray image into a
+// caller-allocated (oh, ow) buffer (see pil_resize_gray).
+void spdf_resize_gray(const uint8_t* src, int sh, int sw, uint8_t* dst,
+                      int oh, int ow) {
+  pil_resize_gray(src, sh, sw, dst, oh, ow);
+}
+
 int spdf_page_count(void* handle) {
   // page_count()/page_size() resolve objects and can mutate the document's
   // caches (indirect attrs, lazy object streams); callers run concurrently
@@ -315,8 +326,7 @@ uint8_t* spdf_decode_image(void* handle, int obj_num, int* w, int* h) {
 // The pipeline writes one 150-DPI crop PNG per segment; PIL's encoder
 // spends most of its time trying all five PNG row filters per row
 // (adaptive heuristic). Fixed filters + fast deflate cut the per-crop
-// host cost ~3x on the 1-core host (profiled: png_encode was the
-// single largest CPU stage of the 1,000-page bench).
+// host cost several-fold.
 //
 // Crops with <= 256 distinct colors take the palettized PNG8 path —
 // filter NONE + Z_RLE deflate over 1 byte/px (flat fills + text on
@@ -487,12 +497,11 @@ uint8_t* spdf_png_encode(const uint8_t* rgb, int w, int h, long* out_len) {
 }
 
 // Fused luma + 2x2-strided subsample over a crop batch — the analyze
-// pass's H2D prep (ops/color.gray_quarter_host). The numpy version costs
-// ~100ms per 32-crop chunk in uint16 temporaries on the 1-core host;
-// this single pass runs at memory speed (~15ms) and releases the GIL
-// via ctypes. gray: (n,h,w) uint8, integer luma (77,150,29)/256 with
-// rounding — bit-identical to the numpy path. rgbq: (n,h/2,w/2,3) uint8.
-// Caller allocates both outputs.
+// pass's H2D prep (ops/color.gray_quarter_host). The numpy version
+// makes uint16 temporaries; this single pass runs at memory speed and
+// releases the GIL via ctypes. gray: (n,h,w) uint8, integer luma
+// (77,150,29)/256 with rounding — bit-identical to the numpy path.
+// rgbq: (n,h/2,w/2,3) uint8. Caller allocates both outputs.
 void spdf_gray_quarter(const uint8_t* rgb, int n, int h, int w,
                        uint8_t* gray, uint8_t* rgbq) {
   const int hq = h / 2, wq = w / 2;
@@ -547,9 +556,8 @@ void spdf_box_downscale(const uint8_t* src, int h, int w, uint8_t* dst,
   if (h <= 0 || w <= 0 || oh <= 0 || ow <= 0) return;
   // horizontal pass: (h, w, 3) u8 -> (h, ow, 3) float. Scratch buffers
   // are thread_local: ~4MB of fresh value-initialized vectors per call
-  // cost ~1ms of page faults + memset at this call rate (one call per
-  // region, ~6MB/s of allocations on the 1-core host); reuse amortizes
-  // them away. tmin/tink are (re)filled per row below, so stale
+  // cost page faults + memset at this call rate (one call per region);
+  // reuse amortizes them away. tmin/tink are (re)filled per row below, so stale
   // contents never leak between calls.
   static thread_local std::vector<float> tmp;
   tmp.resize((size_t)h * ow * 3);

@@ -14,29 +14,44 @@ namespace spdf {
 
 JpxDecodeCb g_jpx_decode_cb = nullptr;
 
-static const char* kDejaVuPath =
-    "/usr/share/fonts/truetype/dejavu/DejaVuSans.ttf";
-static const char* kDejaVuBoldPath =
-    "/usr/share/fonts/truetype/dejavu/DejaVuSans-Bold.ttf";
-static const char* kDejaVuSerifPath =
-    "/usr/share/fonts/truetype/dejavu/DejaVuSerif.ttf";
-static const char* kDejaVuMonoPath =
-    "/usr/share/fonts/truetype/dejavu/DejaVuSansMono.ttf";
+// Non-embedded fonts substitute DejaVu. Sans and Sans-Bold ship with the
+// package (the binding sets g_font_dir); Serif and Mono come from the
+// system's DejaVu install when present, else Sans stands in.
+std::string g_font_dir;
+static const char* kSystemFontDir = "/usr/share/fonts/truetype/dejavu/";
+
+static std::string font_path(const char* name) {
+  std::string own = g_font_dir + "/" + name;
+  if (!g_font_dir.empty()) {
+    if (FILE* f = fopen(own.c_str(), "rb")) {
+      fclose(f);
+      return own;
+    }
+  }
+  std::string sys = std::string(kSystemFontDir) + name;
+  if (FILE* f = fopen(sys.c_str(), "rb")) {
+    fclose(f);
+    return sys;
+  }
+  return g_font_dir + "/DejaVuSans.ttf";
+}
 
 static std::shared_ptr<TrueTypeFont> load_substitute(const std::string& base) {
   static std::unordered_map<std::string, std::shared_ptr<TrueTypeFont>> cache;
   std::string lower;
   for (char c : base) lower += (char)tolower(c);
-  const char* path = kDejaVuPath;
+  const char* name = "DejaVuSans.ttf";
   if (lower.find("mono") != std::string::npos ||
       lower.find("courier") != std::string::npos)
-    path = kDejaVuMonoPath;
+    name = "DejaVuSansMono.ttf";
   else if (lower.find("times") != std::string::npos ||
            lower.find("serif") != std::string::npos ||
            lower.find("roman") != std::string::npos)
-    path = kDejaVuSerifPath;
+    name = "DejaVuSerif.ttf";
   else if (lower.find("bold") != std::string::npos)
-    path = kDejaVuBoldPath;
+    name = "DejaVuSans-Bold.ttf";
+  std::string spath = font_path(name);
+  const char* path = spath.c_str();
   auto it = cache.find(path);
   if (it != cache.end()) return it->second;
   FILE* f = fopen(path, "rb");
@@ -3343,13 +3358,10 @@ std::vector<uint8_t> decode_image_rgb_obj(Document* doc, const ObjPtr& xo,
     return std::vector<uint8_t>((size_t)(*w) * (*h) * 3, 200);
   }
   if (fname == "JPXDecode") {
-    // JPEG2000 decodes through the registered host callback (the Python
-    // binding wires PIL/OpenJPEG — the codec MuPDF itself links). The
-    // payload reaches the callback with pre-filters + decryption already
-    // applied (decode_stream passes JPX raw, like DCT). If no callback is
-    // registered or the codestream is corrupt, degrade to a neutral-gray
-    // plate rather than silently vanishing — downstream detection keeps
-    // the image's geometry/caption signals (PARITY.md §native-gaps).
+    // JPEG2000 decodes through the host callback, if one is registered
+    // (spdf_set_jpx_decoder). The payload reaches it with pre-filters and
+    // decryption applied. Without a decoder, or on a corrupt codestream,
+    // the decode fails like any other: the caller sees no pixels.
     if (g_jpx_decode_cb) {
       std::string data = doc->decode_stream(xo);
       std::vector<uint8_t> rgb((size_t)(*w) * (*h) * 3);
@@ -3357,7 +3369,7 @@ std::vector<uint8_t> decode_image_rgb_obj(Document* doc, const ObjPtr& xo,
                           rgb.data(), *w, *h))
         return rgb;
     }
-    return std::vector<uint8_t>((size_t)(*w) * (*h) * 3, 200);
+    return {};
   }
   if (fname == "DCTDecode" || fname == "DCT") {
     // run non-DCT pre-filters via decode_stream (it skips DCT), then jpeg

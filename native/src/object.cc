@@ -1,7 +1,6 @@
 // Object model, lexer, xref parsing, stream filters.
 #include "spdf.h"
 
-#include <jpeglib.h>
 #include <zlib.h>
 
 #include <algorithm>
@@ -9,7 +8,6 @@
 #include <atomic>
 #include <cstdio>
 #include <cstring>
-#include <csetjmp>
 
 namespace spdf {
 
@@ -507,77 +505,6 @@ std::string lzw_decode(const std::string& in, int early) {
       if ((int)table.size() + early >= (1 << bits) && bits < 12) bits++;
     }
   }
-  return out;
-}
-
-// ---------------------------------------------------------------------------
-// JPEG decode via libjpeg
-// ---------------------------------------------------------------------------
-
-struct JErr {
-  jpeg_error_mgr mgr;
-  jmp_buf jb;
-};
-static void jerr_exit(j_common_ptr cinfo) {
-  JErr* e = (JErr*)cinfo->err;
-  longjmp(e->jb, 1);
-}
-
-std::vector<uint8_t> dct_decode_rgb(const uint8_t* data, size_t size, int* w,
-                                    int* h) {
-  std::vector<uint8_t> out;
-  jpeg_decompress_struct cinfo;
-  JErr jerr;
-  cinfo.err = jpeg_std_error(&jerr.mgr);
-  jerr.mgr.error_exit = jerr_exit;
-  if (setjmp(jerr.jb)) {
-    jpeg_destroy_decompress(&cinfo);
-    return {};
-  }
-  jpeg_create_decompress(&cinfo);
-  jpeg_mem_src(&cinfo, data, (unsigned long)size);
-  jpeg_read_header(&cinfo, TRUE);
-  // CMYK/YCCK JPEGs (print-workflow textbooks): libjpeg cannot convert
-  // them to RGB itself — decode as CMYK and convert after. Adobe-marker
-  // files store INVERTED ink values.
-  bool cmyk = cinfo.jpeg_color_space == JCS_CMYK ||
-              cinfo.jpeg_color_space == JCS_YCCK;
-  cinfo.out_color_space = cmyk ? JCS_CMYK : JCS_RGB;
-  jpeg_start_decompress(&cinfo);
-  *w = cinfo.output_width;
-  *h = cinfo.output_height;
-  out.resize((size_t)(*w) * (*h) * 3);
-  if (cmyk) {
-    bool adobe_inverted = cinfo.saw_Adobe_marker != 0;
-    std::vector<uint8_t> line((size_t)(*w) * 4);
-    while (cinfo.output_scanline < cinfo.output_height) {
-      uint8_t* row = line.data();
-      size_t y = cinfo.output_scanline;
-      jpeg_read_scanlines(&cinfo, &row, 1);
-      uint8_t* dst = out.data() + y * (*w) * 3;
-      for (int x = 0; x < *w; x++) {
-        int c = line[x * 4], m = line[x * 4 + 1], ye = line[x * 4 + 2],
-            k = line[x * 4 + 3];
-        if (adobe_inverted) {
-          // Adobe stores complements: value 255 == no ink
-          dst[x * 3] = (uint8_t)(c * k / 255);
-          dst[x * 3 + 1] = (uint8_t)(m * k / 255);
-          dst[x * 3 + 2] = (uint8_t)(ye * k / 255);
-        } else {
-          dst[x * 3] = (uint8_t)((255 - c) * (255 - k) / 255);
-          dst[x * 3 + 1] = (uint8_t)((255 - m) * (255 - k) / 255);
-          dst[x * 3 + 2] = (uint8_t)((255 - ye) * (255 - k) / 255);
-        }
-      }
-    }
-  } else {
-    while (cinfo.output_scanline < cinfo.output_height) {
-      uint8_t* row = out.data() + (size_t)cinfo.output_scanline * (*w) * 3;
-      jpeg_read_scanlines(&cinfo, &row, 1);
-    }
-  }
-  jpeg_finish_decompress(&cinfo);
-  jpeg_destroy_decompress(&cinfo);
   return out;
 }
 

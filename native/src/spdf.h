@@ -6,9 +6,9 @@
 // embedded-image placement + decode, and full-page / clipped-region RGB
 // rasterization at arbitrary DPI.
 //
-// Uses only system zlib + libjpeg. Fonts: embedded TrueType parsed directly
-// (cmap/loca/glyf/hmtx, composite glyphs); non-embedded fonts substitute
-// DejaVu from disk.
+// Depends only on zlib; JPEG, CCITT and JBIG2 decoders are first-party.
+// Fonts: embedded TrueType parsed directly (cmap/loca/glyf/hmtx, composite
+// glyphs); non-embedded fonts substitute DejaVu (spdf_set_font_dir).
 #pragma once
 
 #include <cstdint>
@@ -139,7 +139,7 @@ class Document {
   // The pipeline touches each embedded image up to three times per
   // detected region — variance validation (spdf_decode_image) plus the
   // fitted-DPI and 150-DPI rasterizations — and a JPEG decode costs
-  // ~2 ms on the 1-core bench host; the per-rasterize-call cache this
+  // milliseconds; the per-rasterize-call cache this
   // replaces only deduplicated placements WITHIN one render. rgb_done /
   // alpha_done are separate because the validation path needs only rgb
   // while stencil placements need only alpha — an entry may be half-
@@ -204,7 +204,7 @@ std::string lzw_decode(const std::string& in, int early);
 std::string ccitt_decode(const std::string& in, int k, int columns, int rows,
                          bool black_is_1, bool byte_align);
 
-// DCT (JPEG) decode -> RGB8; returns empty on failure.
+// DCT (JPEG) decode -> RGB8; returns empty on failure (jpeg.cc).
 std::vector<uint8_t> dct_decode_rgb(const uint8_t* data, size_t size,
                                     int* w, int* h);
 
@@ -591,14 +591,14 @@ void compute_display_bounds(DisplayList* dl);
 
 // Host-side JPEG2000 decoder hook. The embedding process may register a
 // callback (spdf_set_jpx_decoder) that decodes a raw JPX codestream into a
-// caller-allocated w*h*3 RGB8 buffer and returns nonzero on success. The
-// Python binding registers a PIL/OpenJPEG-backed decoder — the same codec
-// family MuPDF links (ref pdf_image_segmentation.py:2731 gets JPX via
-// fitz/OpenJPEG). When no callback is set or it fails, JPXDecode images
-// degrade to a neutral plate (documented in PARITY.md).
+// caller-allocated w*h*3 RGB8 buffer and returns nonzero on success. When
+// no callback is set or it fails, the image decodes to nothing.
 typedef int (*JpxDecodeCb)(const uint8_t* data, long n, uint8_t* out_rgb,
                            int w, int h);
 extern JpxDecodeCb g_jpx_decode_cb;
+
+// Packaged font directory for non-embedded font substitution (content.cc).
+extern std::string g_font_dir;
 
 // Decode an image XObject (by object number) to RGB8.
 // Returns empty on failure.

@@ -31,8 +31,8 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--pages", type=int, default=1000)
     ap.add_argument("--delay", type=float, default=2.0)
-    # Pool sizing is Little's law, not taste: at TPU throughput the
-    # pipeline emits ~1.3 calls/page -> ~26 calls/s over a 1,000-page
+    # Pool sizing is Little's law, not taste: at full pipeline throughput
+    # the pipeline emits ~1.3 calls/page -> ~26 calls/s over a 1,000-page
     # book, and 2 s/call latency means ~52 calls permanently in flight.
     # 64 network-bound threads cover that with margin; the reference by
     # contrast ran every call serially inline (ref :615,853,999).

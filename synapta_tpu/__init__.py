@@ -1,18 +1,19 @@
-"""synapta_tpu — TPU-native textbook visual-segmentation framework.
+"""synapta_tpu — textbook visual-segmentation framework on JAX.
 
-A ground-up JAX/XLA/Pallas rebuild of the capabilities of
-``ashr2k/synapta-image-segmentation`` (reference at /root/reference):
+A ground-up JAX/XLA rebuild of the capabilities of
+``ashr2k/synapta-image-segmentation`` (SURVEY.md):
 PDF textbooks -> detected/classified/enriched visual segments
 (charts, diagrams, flowcharts, images, figures) emitted as
 ``{book_id}_visual_segments.json`` + ``{book_id}_visual_summary.csv``
 plus per-segment PNG crops.
 
-Architecture (TPU-first, not a port):
+Architecture (accelerator-first, not a port):
   - native/       C++ PDF engine (parse + rasterize; replaces PyMuPDF)
   - io/           ingest bindings, output writers, xlsx taxonomy reader
-  - ops/          Pallas/XLA image kernels (edges, morphology, hough,
+  - ops/          device image ops in plain JAX (edges, morphology,
                   connected components, k-means, blobs, resize, stats)
-  - models/       flax OCR models (text detector + CTC recognizer)
+  - models/       OCR models as JAX functions (text detector + CTC
+                  recognizer) with .npz weights
   - ocr/          batched OCR driver emitting OCRResult schema
   - vision/       region detection engine + classification heuristics
   - llm/          async batched Pixtral client (+ fake for tests)

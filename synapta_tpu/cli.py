@@ -17,7 +17,7 @@ import sys
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="synapta_tpu",
-        description="TPU-native textbook visual segmentation pipeline",
+        description="Textbook visual segmentation pipeline",
     )
     ap.add_argument("--pdf", required=True, help="input PDF path")
     ap.add_argument("--book-id", required=True)

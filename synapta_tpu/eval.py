@@ -205,9 +205,7 @@ def evaluate_book(pages: int = 16, seed: int = 3, use_llm: bool = False) -> Dict
     from synapta_tpu.config import PipelineConfig
     from synapta_tpu.io.pdf_writer import make_test_book
     from synapta_tpu.llm.fake import DisabledClient
-    from synapta_tpu.models.train import cer
     from synapta_tpu.pipeline import VisualSegmentationPipeline
-    from synapta_tpu.schema import BoundingBox, VisualType
 
     tmp = tempfile.mkdtemp(prefix="synapta_eval_")
     pdf = os.path.join(tmp, "book.pdf")
@@ -222,6 +220,19 @@ def evaluate_book(pages: int = 16, seed: int = 3, use_llm: bool = False) -> Dict
         resume=False,
     )
     segs = pipe.process()
+    out = score_book(truths, segs)
+    out["pages"] = pages
+    out["wall_s"] = round(pipe.stats.wall_s, 2)
+    return out
+
+
+def score_book(truths, segs) -> Dict:
+    """Score pipeline segments against make_test_book's ground truth:
+    detection recall at IoU 0.5, mean best IoU, classification accuracy,
+    and OCR CER over the texts drawn inside each visual."""
+    from synapta_tpu.models.train import cer
+    from synapta_tpu.schema import BoundingBox, VisualType
+
     by_page: Dict[int, List] = {}
     for s in segs:
         by_page.setdefault(s.page_no - 1, []).append(s)
@@ -280,26 +291,23 @@ def evaluate_book(pages: int = 16, seed: int = 3, use_llm: bool = False) -> Dict
                                 break
                         cers.append(best_c)
     return {
-        "pages": pages,
         "detection_recall@0.5": round(det_tp / max(det_total, 1), 4),
         "mean_iou": round(float(np.mean(ious)) if ious else 0.0, 4),
         "classification_accuracy": round(cls_hits / max(cls_total, 1), 4),
         "ocr_cer": round(float(np.mean(cers)) if cers else 1.0, 4),
         "n_truth_visuals": det_total,
         "n_detected": sum(len(v) for v in by_page.values()),
-        "wall_s": round(pipe.stats.wall_s, 2),
     }
 
 
 def evaluate_scanned(pages: int = 2, seed: int = 1) -> Dict:
-    """Scanned-page OCR: full-page noisy rasters of REAL text (PIL-rendered
-    glyphs, grey background, sensor noise, skew) through the whole
-    pipeline; CER against the exact drawn text. The content class the
-    reference's PaddleOCR covered (ref :1791-1810)."""
+    """Scanned-page OCR: full-page noisy rasters of REAL text (grey
+    background, sensor noise, skew, JPEG) through the whole pipeline; CER
+    against the exact drawn text. The content class the reference's
+    PaddleOCR covered (ref :1791-1810)."""
     from synapta_tpu.config import PipelineConfig
     from synapta_tpu.io.pdf_writer import make_scanned_book
     from synapta_tpu.llm.fake import DisabledClient
-    from synapta_tpu.models.train import cer
     from synapta_tpu.pipeline import VisualSegmentationPipeline
 
     tmp = tempfile.mkdtemp(prefix="synapta_scan_")
@@ -315,6 +323,19 @@ def evaluate_scanned(pages: int = 2, seed: int = 1) -> Dict:
         resume=False,
     )
     segs = pipe.process()
+    out = score_scanned(expected, segs)
+    wall = pipe.stats.wall_s
+    out["scanned_pages"] = pages
+    out["scanned_wall_s"] = round(wall, 2)
+    out["scanned_pages_per_s"] = round(pages / wall, 3) if wall else 0.0
+    return out
+
+
+def score_scanned(expected: List[str], segs) -> Dict:
+    """Score segments of a make_scanned_book run: pages detected and the
+    page-level CER against the exact drawn text."""
+    from synapta_tpu.models.train import cer
+
     by_page = {s.page_no - 1: s for s in segs}
     cers = []
     detected = 0
@@ -327,13 +348,9 @@ def evaluate_scanned(pages: int = 2, seed: int = 1) -> Dict:
         hyp = norm_text(seg.ocr_result.raw_text.replace("\n", " "))
         ref = norm_text(want.replace("\n", " "))
         cers.append(cer(ref, hyp))
-    wall = pipe.stats.wall_s
     return {
-        "scanned_pages": pages,
         "scanned_detected": detected,
         "scanned_ocr_cer": round(float(np.mean(cers)), 4),
-        "scanned_wall_s": round(wall, 2),
-        "scanned_pages_per_s": round(pages / wall, 3) if wall else 0.0,
     }
 
 

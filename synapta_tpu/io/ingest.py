@@ -24,21 +24,28 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from synapta_tpu.utils.log import get_logger
+
+log = get_logger("ingest")
+
 # SPDF_NATIVE_SO overrides the engine binary — used by the fuzz/sanitizer
 # harness to point at an ASan build without touching the installed lib
 _SO_PATH = os.environ.get(
     "SPDF_NATIVE_SO",
     os.path.join(os.path.dirname(__file__), "_pdf_native.so"),
 )
+FONT_DIR = os.path.join(os.path.dirname(__file__), "fonts")
 
 _lib = None
 
-# JPEG2000 (JPXDecode) host decoder: the engine calls back into Python and
-# we decode via PIL/OpenJPEG — the same codec family fitz/MuPDF links for
-# JPX (ref pdf_image_segmentation.py:2731). The callback fills the engine's
-# pre-allocated w*h*3 RGB8 buffer (w/h from the image dict); any failure
-# returns 0 and the engine degrades to its neutral plate. ctypes re-acquires
-# the GIL inside the callback, so it is safe from the engine's caller thread
+# JPEG2000 (JPXDecode) host decoder: the engine calls back into Python,
+# which decodes through Pillow/OpenJPEG when Pillow is installed — the codec
+# family fitz/MuPDF links for JPX (ref pdf_image_segmentation.py:2731).
+# Pillow is imported only when a JPX stream is met. The callback fills the
+# engine's pre-allocated w*h*3 RGB8 buffer (w/h from the image dict); on
+# failure it logs and returns 0, the image decodes to nothing, and
+# detection counts the failure (vision/detect.py). ctypes re-acquires the
+# GIL inside the callback, so it is safe from the engine's caller thread
 # even though the outer foreign call released it.
 _JPX_CB_TYPE = ctypes.CFUNCTYPE(
     ctypes.c_int, ctypes.POINTER(ctypes.c_uint8), ctypes.c_long,
@@ -61,7 +68,8 @@ def _jpx_decode_host(data, n, out, w, h):
         arr = np.ascontiguousarray(np.asarray(im, dtype=np.uint8))
         ctypes.memmove(out, arr.ctypes.data, w * h * 3)
         return 1
-    except Exception:
+    except Exception as e:  # ImportError included: no JPX codec here
+        log.warning("JPEG2000 image not decoded: %s", e)
         return 0
 
 
@@ -120,35 +128,34 @@ def _load_lib():
         ctypes.c_char_p, ctypes.c_int, ctypes.c_int,
     ]
     lib.spdf_box_downscale.restype = None
-    try:
-        lib.spdf_line_tiles.argtypes = [
-            ctypes.c_char_p, ctypes.c_int, ctypes.c_int,
-            ctypes.c_char_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_char_p, ctypes.c_char_p,
-        ]
-        lib.spdf_line_tiles.restype = None
-    except AttributeError:  # stale .so: processor keeps the Python path
-        pass
-    try:
-        lib.spdf_set_jpx_decoder.argtypes = [_JPX_CB_TYPE]
-        lib.spdf_set_jpx_decoder.restype = None
-        global _jpx_cb_ref
-        _jpx_cb_ref = _JPX_CB_TYPE(_jpx_decode_host)
-        lib.spdf_set_jpx_decoder(_jpx_cb_ref)
-    except AttributeError:  # stale .so without the hook: keep plate degrade
-        pass
+    lib.spdf_resize_gray.argtypes = [
+        ctypes.c_char_p, ctypes.c_int, ctypes.c_int,
+        ctypes.c_char_p, ctypes.c_int, ctypes.c_int,
+    ]
+    lib.spdf_resize_gray.restype = None
+    lib.spdf_line_tiles.argtypes = [
+        ctypes.c_char_p, ctypes.c_int, ctypes.c_int,
+        ctypes.c_char_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_char_p, ctypes.c_char_p,
+    ]
+    lib.spdf_line_tiles.restype = None
+    lib.spdf_set_font_dir.argtypes = [ctypes.c_char_p]
+    lib.spdf_set_font_dir.restype = None
+    lib.spdf_set_font_dir(FONT_DIR.encode())
+    lib.spdf_set_jpx_decoder.argtypes = [_JPX_CB_TYPE]
+    lib.spdf_set_jpx_decoder.restype = None
+    global _jpx_cb_ref
+    _jpx_cb_ref = _JPX_CB_TYPE(_jpx_decode_host)
+    lib.spdf_set_jpx_decoder(_jpx_cb_ref)
     _lib = lib
     return lib
 
 
 def png_encode(rgb: "np.ndarray") -> bytes:
-    """PNG-encode an (H, W, 3) uint8 array via the native engine (filter-
-    NONE rows + fast deflate — ~3x cheaper than PIL's adaptive-filter
-    encoder on crop renders; profiled as the largest host CPU stage of
-    the 1,000-page bench). ctypes releases the GIL for the call, so pool
-    threads overlap it like the PIL path it replaces."""
-    import numpy as np
-
+    """PNG-encode an (H, W, 3) uint8 array via the native engine (fixed
+    row filters + fast deflate, far cheaper than an adaptive-filter
+    encoder on crop renders). ctypes releases the GIL for the call, so
+    pool threads overlap encodes with renders."""
     lib = _load_lib()
     arr = np.ascontiguousarray(rgb)
     if arr.dtype != np.uint8 or arr.ndim != 3 or arr.shape[2] != 3:
@@ -170,8 +177,6 @@ def gray_quarter_native(rgb: "np.ndarray"):
     """Native fused luma + 2x2 subsample over an (N, H, W, 3) uint8 batch.
     Bit-identical to ops/color.gray_quarter_host's numpy path; one
     memory-speed GIL-free pass. Returns (gray (N,H,W), rgbq (N,H/2,W/2,3))."""
-    import numpy as np
-
     lib = _load_lib()
     arr = np.ascontiguousarray(rgb)
     n, h, w, _ = arr.shape
@@ -194,8 +199,6 @@ def box_downscale(rgb: "np.ndarray", oh: int, ow: int) -> "np.ndarray":
     downscaled 150-DPI render is a faithful stand-in for a second
     fitted-DPI rasterization (unlike bilinear point-sampling, which drops
     sub-pixel strokes). Used by io/loader to halve region raster cost."""
-    import numpy as np
-
     lib = _load_lib()
     arr = np.ascontiguousarray(rgb)
     if arr.dtype != np.uint8 or arr.ndim != 3 or arr.shape[2] != 3:
@@ -208,22 +211,33 @@ def box_downscale(rgb: "np.ndarray", oh: int, ow: int) -> "np.ndarray":
     return out
 
 
+def resize_gray(gray: "np.ndarray", oh: int, ow: int) -> "np.ndarray":
+    """Bilinear resize of an (H, W) uint8 image, pixel-identical to
+    Pillow's ``Image.resize(..., BILINEAR)`` on mode-L images (the native
+    resampler the line-tile builder uses; locked by tests/test_ocr.py)."""
+    lib = _load_lib()
+    arr = np.ascontiguousarray(gray)
+    if arr.dtype != np.uint8 or arr.ndim != 2:
+        raise ValueError("resize_gray expects (H, W) uint8")
+    out = np.empty((oh, ow), np.uint8)
+    lib.spdf_resize_gray(
+        arr.ctypes.data_as(ctypes.c_char_p), arr.shape[0], arr.shape[1],
+        out.ctypes.data_as(ctypes.c_char_p), oh, ow,
+    )
+    return out
+
+
 def line_tiles_native(src: "np.ndarray", boxes: "np.ndarray",
                       tile_h: int, tile_w: int):
-    """Batched OCR line-tile build via the native engine — the C form of
-    ocr/processor.TPUOCR._line_tile, bit-identical (integer luma,
-    histogram percentile stretch, PIL-parity BILINEAR resize; locked by
-    tests/test_ocr.py). Replaces the per-tile Python+PIL loop that
-    profiled at ~1.4 ms/tile on the 1-core host.
+    """Batched OCR line-tile build via the native engine: integer luma,
+    histogram percentile stretch, Pillow-parity BILINEAR resize (the
+    recognizer was trained on such tiles; tests/test_ocr.py holds the
+    native tiles equal to a Python+Pillow reference).
 
     src: (H, W, 3) uint8; boxes: (N, 4) int32 in src coords (caller
     applies any hires ratio). Returns (tiles (N, tile_h, tile_w) uint8,
-    content_w (N,) int32) or None when the .so lacks the entry point."""
-    import numpy as np
-
+    content_w (N,) int32)."""
     lib = _load_lib()
-    if not hasattr(lib, "spdf_line_tiles"):
-        return None
     arr = np.ascontiguousarray(src)
     if arr.dtype != np.uint8 or arr.ndim != 3 or arr.shape[2] != 3:
         raise ValueError("line_tiles_native expects (H, W, 3) uint8")

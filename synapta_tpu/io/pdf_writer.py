@@ -16,50 +16,129 @@ internally.
 from __future__ import annotations
 
 import io
+import os
+import struct
 import zlib
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-DEJAVU = "/usr/share/fonts/truetype/dejavu/DejaVuSans.ttf"
-DEJAVU_BOLD = "/usr/share/fonts/truetype/dejavu/DejaVuSans-Bold.ttf"
+from synapta_tpu.io.ingest import FONT_DIR
+
+DEJAVU = os.path.join(FONT_DIR, "DejaVuSans.ttf")
+DEJAVU_BOLD = os.path.join(FONT_DIR, "DejaVuSans-Bold.ttf")
 
 PAGE_W, PAGE_H = 612.0, 792.0  # US Letter in points
 
 
 # ---------------------------------------------------------------------------
-# font metrics via PIL (advance widths in milli-em units for /Widths arrays)
+# font metrics from the TrueType tables (cmap + hmtx)
 # ---------------------------------------------------------------------------
 
-_FONT_CACHE: Dict[str, Any] = {}
+
+class TrueTypeMetrics:
+    """Character -> (glyph id, advance width) for one TrueType font, read
+    from its own cmap (format 4 or 12) and hmtx tables."""
+
+    def __init__(self, path: str):
+        with open(path, "rb") as f:
+            data = f.read()
+        n = struct.unpack_from(">H", data, 4)[0]
+        tables = {}
+        for i in range(n):
+            tag, _, off, _ = struct.unpack_from(">4sIII", data, 12 + 16 * i)
+            tables[tag] = off
+        self.upem = struct.unpack_from(">H", data, tables[b"head"] + 18)[0]
+        n_glyphs = struct.unpack_from(">H", data, tables[b"maxp"] + 4)[0]
+        n_hm = struct.unpack_from(">H", data, tables[b"hhea"] + 34)[0]
+        adv = [struct.unpack_from(">H", data, tables[b"hmtx"] + 4 * i)[0]
+               for i in range(n_hm)]
+        self.advances = adv + [adv[-1]] * (n_glyphs - n_hm)
+        self.cmap = self._read_cmap(data, tables[b"cmap"])
+
+    @staticmethod
+    def _read_cmap(data: bytes, base: int) -> Dict[int, int]:
+        n = struct.unpack_from(">H", data, base + 2)[0]
+        subs = {}
+        for i in range(n):
+            plat, enc, off = struct.unpack_from(">HHI", data, base + 4 + 8 * i)
+            subs[(plat, enc)] = base + off
+        for key in ((3, 10), (0, 6), (0, 4), (3, 1), (0, 3)):
+            if key not in subs:
+                continue
+            off = subs[key]
+            fmt = struct.unpack_from(">H", data, off)[0]
+            if fmt == 12:
+                groups = struct.unpack_from(">I", data, off + 12)[0]
+                out = {}
+                for g in range(groups):
+                    lo, hi, gid = struct.unpack_from(">III", data,
+                                                     off + 16 + 12 * g)
+                    for cp in range(lo, hi + 1):
+                        out[cp] = gid + cp - lo
+                return out
+            if fmt == 4:
+                seg2 = struct.unpack_from(">H", data, off + 6)[0]
+                ends = off + 14
+                starts = ends + seg2 + 2
+                deltas = starts + seg2
+                ranges = deltas + seg2
+                out = {}
+                for s in range(seg2 // 2):
+                    end = struct.unpack_from(">H", data, ends + 2 * s)[0]
+                    start = struct.unpack_from(">H", data, starts + 2 * s)[0]
+                    delta = struct.unpack_from(">h", data, deltas + 2 * s)[0]
+                    ro_at = ranges + 2 * s
+                    ro = struct.unpack_from(">H", data, ro_at)[0]
+                    for cp in range(start, end + 1):
+                        if cp == 0xFFFF:
+                            continue
+                        if ro == 0:
+                            gid = (cp + delta) & 0xFFFF
+                        else:
+                            at = ro_at + ro + 2 * (cp - start)
+                            gid = struct.unpack_from(">H", data, at)[0]
+                            gid = (gid + delta) & 0xFFFF if gid else 0
+                        if gid:
+                            out[cp] = gid
+                return out
+        raise ValueError("no Unicode cmap subtable")
+
+    def glyph(self, ch: str) -> Optional[Tuple[int, int]]:
+        """-> (gid, width in 1000/em, rounded down) or None if the font
+        lacks the char."""
+        gid = self.cmap.get(ord(ch))
+        if gid is None:
+            return None
+        return gid, self.advances[gid] * 1000 // self.upem
+
+    def advance(self, ch: str) -> int:
+        """Advance width in font units (.notdef's for missing chars)."""
+        return self.advances[self.cmap.get(ord(ch), 0)]
 
 
-def _pil_font(path: str, size: int = 1000):
-    from PIL import ImageFont
+_METRICS: Dict[str, TrueTypeMetrics] = {}
 
-    key = f"{path}@{size}"
-    if key not in _FONT_CACHE:
-        _FONT_CACHE[key] = ImageFont.truetype(path, size)
-    return _FONT_CACHE[key]
+
+def font_metrics(path: str) -> TrueTypeMetrics:
+    if path not in _METRICS:
+        _METRICS[path] = TrueTypeMetrics(path)
+    return _METRICS[path]
 
 
 def text_width(text: str, size: float, font_path: str = DEJAVU) -> float:
-    """Advance width of ``text`` at ``size`` pt."""
-    f = _pil_font(font_path)
-    return f.getlength(text) * size / 1000.0
+    """Advance width of ``text`` at ``size`` pt (unkerned, as a PDF
+    renderer lays it out from /Widths)."""
+    m = font_metrics(font_path)
+    return sum(m.advance(c) for c in text) * size / m.upem
 
 
 def _widths_array(font_path: str) -> List[int]:
     """Advance widths for chars 32..255 (latin-1) in 1000/em units."""
-    f = _pil_font(font_path)
-    out = []
-    for code in range(32, 256):
-        try:
-            out.append(int(round(f.getlength(chr(code)))))
-        except Exception:
-            out.append(600)
-    return out
+    m = font_metrics(font_path)
+    return [int(round(m.advance(chr(code)) * 1000 / m.upem))
+            for code in range(32, 256)]
 
 
 # ---------------------------------------------------------------------------
@@ -139,43 +218,6 @@ class PDFBuilder:
 # ---------------------------------------------------------------------------
 # CID (Type0/Identity-H) text: Greek/math lines outside WinAnsi
 # ---------------------------------------------------------------------------
-
-
-class _CIDFontInfo:
-    """fontTools-derived glyph table for one TTF: char -> (gid, width)."""
-
-    def __init__(self, path: str):
-        from fontTools.ttLib import TTFont
-
-        tt = TTFont(path, fontNumber=0)
-        self.cmap = tt.getBestCmap()
-        upem = tt["head"].unitsPerEm
-        hmtx = tt["hmtx"]
-        order = tt.getGlyphOrder()
-        gid_of = {name: i for i, name in enumerate(order)}
-        self._gid_w: Dict[str, Tuple[int, int]] = {}
-        self._upem, self._hmtx, self._gid_of = upem, hmtx, gid_of
-
-    def glyph(self, ch: str) -> Optional[Tuple[int, int]]:
-        """-> (gid, width in 1000/em) or None if the font lacks the char."""
-        if ch not in self._gid_w:
-            name = self.cmap.get(ord(ch))
-            if name is None:
-                self._gid_w[ch] = None
-            else:
-                gid = self._gid_of.get(name, 0)
-                w = self._hmtx[name][0] * 1000 // self._upem
-                self._gid_w[ch] = (gid, w)
-        return self._gid_w[ch]
-
-
-_CID_INFO: Dict[str, _CIDFontInfo] = {}
-
-
-def _cid_info(path: str) -> _CIDFontInfo:
-    if path not in _CID_INFO:
-        _CID_INFO[path] = _CIDFontInfo(path)
-    return _CID_INFO[path]
 
 
 def _winansi_ok(s: str) -> bool:
@@ -263,16 +305,19 @@ class PageCanvas:
         bold: bool = False,
         record: bool = True,
         angle: float = 0.0,
+        gray: float = 0.0,
     ) -> Tuple[float, float, float, float]:
         """Draw ``s`` with its baseline such that the glyph box top sits at
         ``y`` (top-left origin). Returns the text bbox (x0,y0,x1,y1).
 
         ``angle`` (degrees, counter-clockwise) rotates via the text
         matrix; only 0 and 90 produce exact truth bboxes (arbitrary
-        angles return the 90-degree approximation)."""
+        angles return the 90-degree approximation). ``gray`` is the fill
+        level (0 black, 1 white)."""
         import math as _math
 
         ascent, descent = 0.76, 0.24  # DejaVuSans approx, of em
+        fill = "0 0 0 rg" if not gray else f"{gray:.3f} {gray:.3f} {gray:.3f} rg"
         wpath = DEJAVU_BOLD if bold else DEJAVU
         if _winansi_ok(s):
             font = "/F2" if bold else "/F1"
@@ -284,7 +329,7 @@ class PageCanvas:
             # ids in a hex string (no escaping needed). The engine's CID
             # path + ToUnicode recover the exact unicode on extraction.
             font = "/F4" if bold else "/F3"
-            info = _cid_info(wpath)
+            info = font_metrics(wpath)
             hx = []
             for ch in s:
                 g = info.glyph(ch) or info.glyph("?")
@@ -297,7 +342,7 @@ class PageCanvas:
             ca, sa = _math.cos(rad), _math.sin(rad)
             # anchor: baseline start at (x, y) rotating CCW in PDF space
             self.ops.append(
-                f"0 0 0 rg BT {font} {size:.2f} Tf "
+                f"{fill} BT {font} {size:.2f} Tf "
                 f"{ca:.4f} {sa:.4f} {-sa:.4f} {ca:.4f} "
                 f"{x:.2f} {self._y(y):.2f} Tm {payload} Tj ET"
             )
@@ -312,7 +357,8 @@ class PageCanvas:
             return bbox
         baseline = y + ascent * size
         self.ops.append(
-            f"0 0 0 rg BT {font} {size:.2f} Tf {x:.2f} {self._y(baseline):.2f} Td {payload} Tj ET"
+            f"{fill} BT {font} {size:.2f} Tf {x:.2f} "
+            f"{self._y(baseline):.2f} Td {payload} Tj ET"
         )
         bbox = (x, y, x + adv, y + (ascent + descent) * size)
         self._track(*bbox)
@@ -501,7 +547,7 @@ class SyntheticBook:
         /W for the used glyphs, /CIDToGIDMap /Identity, ToUnicode CMap so
         the engine's text extraction recovers the drawn unicode."""
         ff = self._font_file(b, path)
-        info = _cid_info(path)
+        info = font_metrics(path)
         used: Dict[int, Tuple[int, int]] = {}  # gid -> (codepoint, width)
         for ch in sorted(chars):
             g = info.glyph(ch)
@@ -881,27 +927,38 @@ def _photo_array(rng: np.random.Generator, h: int = 180, w: int = 300) -> np.nda
     return np.clip(img * 255, 0, 255).astype(np.uint8)
 
 
+def _rasterize(page_w: float, page_h: float, draw) -> np.ndarray:
+    """Rasterize one generated page at 72 DPI (1 pt = 1 px) with the
+    native engine: ``draw(canvas)`` fills a fresh PageCanvas."""
+    from synapta_tpu.io.ingest import Document
+
+    book = SyntheticBook(width=page_w, height=page_h)
+    draw(book.new_page())
+    with Document(data=book.tobytes()) as doc:
+        return doc.render(0, dpi=72.0)
+
+
 def _table_array(rng: np.random.Generator) -> np.ndarray:
     """A rendered spreadsheet-like table image (text-dense embedded graphic)."""
-    from PIL import Image, ImageDraw, ImageFont
-
     w, h = 460, 260
-    img = Image.new("RGB", (w, h), (255, 255, 255))
-    d = ImageDraw.Draw(img)
-    font = ImageFont.truetype(DEJAVU, 13)
     headers = ["Asset", "Weight", "Return", "Vol"]
     rows = [
         [f"Fund {chr(65 + i)}", f"{rng.uniform(5, 40):.1f}%", f"{rng.uniform(-5, 15):.2f}%", f"{rng.uniform(4, 25):.1f}%"]
         for i in range(7)
     ]
-    for j, hd in enumerate(headers):
-        d.text((14 + j * 112, 10), hd, fill=(0, 0, 0), font=font)
-    d.line([(8, 34), (w - 8, 34)], fill=(0, 0, 0), width=2)
-    for i, row in enumerate(rows):
-        for j, cell in enumerate(row):
-            d.text((14 + j * 112, 44 + i * 28), cell, fill=(20, 20, 20), font=font)
-        d.line([(8, 66 + i * 28), (w - 8, 66 + i * 28)], fill=(180, 180, 180), width=1)
-    return np.asarray(img)
+
+    def draw(c: PageCanvas) -> None:
+        for j, hd in enumerate(headers):
+            c.text(14 + j * 112, 10, hd, size=13.0, record=False)
+        c.line(8, 34, w - 8, 34, width=2.0)
+        for i, row in enumerate(rows):
+            for j, cell in enumerate(row):
+                c.text(14 + j * 112, 44 + i * 28, cell, size=13.0,
+                       record=False, gray=20 / 255)
+            c.line(8, 66 + i * 28, w - 8, 66 + i * 28, width=1.0,
+                   color=(180 / 255,) * 3)
+
+    return _rasterize(w, h, draw)
 
 
 def add_embedded_image(c: PageCanvas, x0, y0, x1, y1, rng: np.random.Generator,
@@ -1066,20 +1123,17 @@ def make_diverse_book(path: str, seed: int = 0) -> List[PageTruth]:
 def make_scanned_book(path: str, pages: int = 4, seed: int = 0,
                       noise: float = 5.0, skew: float = 0.004):
     """Scanned-textbook fixture with REAL text: each page is one full-page
-    raster of rendered paragraphs (PIL truetype, so glyph shapes differ
-    from the vector-text renderer) with grey background, sensor noise and
-    slight skew — the content class PaddleOCR handled for the reference
-    (photos/scans, ref :1791-1810) and a deterministic oracle for
+    raster of paragraphs (rasterized by the native engine at 72 DPI from a
+    generated page, then embedded as a JPEG) with grey background, sensor
+    noise and slight skew — the content class PaddleOCR handled for the
+    reference (photos/scans, ref :1791-1810) and a deterministic oracle for
     scanned-page OCR CER.
 
     Returns (truths, expected_texts): expected_texts[p] is the exact text
     drawn on page p."""
-    from PIL import Image, ImageDraw, ImageFont
-
     rng = np.random.default_rng(seed)
     book = SyntheticBook()
     texts: List[str] = []
-    font = ImageFont.truetype(DEJAVU, 22)
     # Greek/math word classes interleave with prose: scanned finance
     # pages are full of "βp = 1.2"-style notation (VERDICT r3 item 1c)
     _gm = ["βp = 1.2", "σ² = 0.04", "Δ ≈ 0.62", "∑ wi = 1", "μ ≥ 4%",
@@ -1087,8 +1141,6 @@ def make_scanned_book(path: str, pages: int = 4, seed: int = 0,
     words_src = (_LOREM + " " + _LOREM + " " + _LOREM).split()
     W, H = 1020, 1320
     for p in range(pages):
-        img = Image.new("L", (W, H), 235)
-        d = ImageDraw.Draw(img)
         rng.shuffle(words_src)
         words = list(words_src)
         # splice one formula token into every ~12th slot
@@ -1103,17 +1155,22 @@ def make_scanned_book(path: str, pages: int = 4, seed: int = 0,
             line: List[str] = []
             while (
                 i < len(words)
-                and d.textlength(" ".join(line + [words[i]]), font=font)
-                < W - 160
+                and text_width(" ".join(line + [words[i]]), 22.0) < W - 160
             ):
                 line.append(words[i])
                 i += 1
             if not line:
                 break
             lines.append(" ".join(line))
-            d.text((80, y), lines[-1], fill=30, font=font)
             y += 34
-        arr = np.array(img).astype(np.float32)
+
+        def draw(c: PageCanvas) -> None:
+            c.rect(0, 0, W, H, fill=(235 / 255,) * 3, stroke=None)
+            for k, ln in enumerate(lines):
+                c.text(80, 60 + 34 * k, ln, size=22.0, record=False,
+                       gray=30 / 255)
+
+        arr = _rasterize(W, H, draw)[..., 0].astype(np.float32)
         arr += rng.normal(0, noise, arr.shape)
         arr = np.clip(arr, 0, 255).astype(np.uint8)
         if skew:

@@ -14,7 +14,6 @@ live key (ref :2707); we never will.
 from __future__ import annotations
 
 import base64
-import io
 import json
 import os
 import re
@@ -203,18 +202,17 @@ def parse_calculations(content: str) -> Dict[str, Any]:
 
 
 def encode_image_png(pixels: np.ndarray, max_dim: int = 1536) -> str:
-    """RGB array -> base64 PNG, downscaled to keep request sizes sane."""
-    from PIL import Image
+    """RGB array -> base64 PNG (native encoder), area-downscaled to keep
+    request sizes sane."""
+    from synapta_tpu.io.ingest import box_downscale, png_encode
 
-    img = Image.fromarray(pixels)
-    if max(img.size) > max_dim:
-        scale = max_dim / max(img.size)
-        img = img.resize(
-            (max(1, int(img.width * scale)), max(1, int(img.height * scale)))
-        )
-    bio = io.BytesIO()
-    img.save(bio, format="PNG")
-    return base64.b64encode(bio.getvalue()).decode("ascii")
+    arr = np.ascontiguousarray(pixels, np.uint8)
+    h, w = arr.shape[:2]
+    if max(h, w) > max_dim:
+        scale = max_dim / max(h, w)
+        arr = box_downscale(arr, max(1, int(h * scale)),
+                            max(1, int(w * scale)))
+    return base64.b64encode(png_encode(arr)).decode("ascii")
 
 
 class PixtralClient:

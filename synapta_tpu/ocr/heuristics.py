@@ -4,7 +4,7 @@ Ports the reference's OCR-dependent extraction helpers
 (ref pdf_image_segmentation.py:1197-1308, 1463-1544, 1619-1654, 1676-1693):
 axis labels, legend clustering, tick labels, value ranges, diagram nodes,
 structured text. These are cheap string ops on the (small) OCR block lists
-the batched TPU OCR emits — deliberately host-side.
+the batched device OCR emits — deliberately host-side.
 """
 from __future__ import annotations
 

@@ -1,13 +1,14 @@
-"""TPU image-ops library (XLA + Pallas).
+"""Device image-ops library (plain JAX, compiled by XLA).
 
 Batched, fixed-shape, jit-compatible equivalents of the reference's
 per-image OpenCV/sklearn calls (ref pdf_image_segmentation.py:1231-1838):
 edge maps, separable morphology, oriented line counts, circle scoring,
 connected components, masked k-means, and reduction stats. Everything
-operates on crop *batches* resident in HBM — no per-image host round-trips.
+operates on crop *batches* resident in device memory — no per-image host
+round-trips.
 """
 
-from synapta_tpu.ops.color import rgb_to_gray, rgb_to_hsv  # noqa: F401
+from synapta_tpu.ops.color import rgb_to_gray  # noqa: F401
 from synapta_tpu.ops.filters import (  # noqa: F401
     sobel_edges,
     erode,

@@ -6,8 +6,8 @@ use Sobel gradient magnitude with hysteresis-free double thresholding — the
 decision heuristics downstream only consume pixel *counts* and densities, and
 parity tests lock those decisions against the OpenCV reference path.
 
-All functions are batched (B, H, W) float32 and jit-compatible; reductions
-map onto the VPU, the 3x3 convs onto MXU/VPU via lax.conv.
+All functions are batched (B, H, W) float32 and jit-compatible; the 3x3
+convs go through lax.conv, the morphology through reduce_window.
 """
 from __future__ import annotations
 

@@ -3,8 +3,12 @@
 Replaces the sklearn KMeans call (ref pdf_image_segmentation.py:1566-1594):
 pixels pass the reference's HSV mask (S > 30, 40 < V < 240), a fixed-size
 sample is gathered, and k-means runs a fixed number of Lloyd iterations in a
-fori_loop — static shapes throughout, distance computation on the MXU.
+fori_loop — static shapes throughout, distances as batched matmuls.
 Batched over crops.
+
+The matmuls run at HIGHEST precision: RGB values reach 255, so the
+x2 - 2xc + c2 distances lose whole units under a reduced-precision
+(TF32 or bf16) matmul, enough to flip a pixel's cluster.
 """
 from __future__ import annotations
 
@@ -12,7 +16,6 @@ import jax
 import jax.numpy as jnp
 from jax import lax
 
-from synapta_tpu.ops.color import rgb_to_hsv
 
 
 def _sample_masked(rgb_flat: jnp.ndarray, mask_flat: jnp.ndarray, n: int):
@@ -46,8 +49,15 @@ def dominant_colors(
     Centers are RGB float32; counts are masked-pixel counts per cluster.
     """
     B = rgb.shape[0]
-    _, s, v = rgb_to_hsv(rgb)
-    mask = (s > sat_min) & (v > val_range[0]) & (v < val_range[1])
+    # the reference's HSV mask (OpenCV ranges, ref :1574) in exact
+    # arithmetic: S = 255 * (max - min) / max, so S > sat_min is
+    # 255 * (max - min) > sat_min * max on integers below 2^24 — no
+    # division whose rounding differs between backends
+    f = rgb.astype(jnp.float32)
+    v = jnp.max(f, axis=-1)
+    c = v - jnp.min(f, axis=-1)
+    mask = ((255.0 * c > sat_min * v) & (v > val_range[0])
+            & (v < val_range[1]))
     rgb_flat = rgb.reshape(B, -1, 3)
     mask_flat = mask.reshape(B, -1).astype(jnp.float32)
 
@@ -75,15 +85,17 @@ def dominant_colors(
 
     init_centers = jax.vmap(maximin)(samples, weights)  # (B, k, 3)
 
+    hi = lax.Precision.HIGHEST
+
     def lloyd(_, centers):
-        # distances (B, n, k) via (x - c)^2 = x2 - 2xc + c2 (MXU matmul)
+        # distances (B, n, k) via (x - c)^2 = x2 - 2xc + c2 (a matmul)
         x2 = jnp.sum(samples * samples, axis=-1, keepdims=True)
         c2 = jnp.sum(centers * centers, axis=-1)[:, None, :]
-        xc = jnp.einsum("bnd,bkd->bnk", samples, centers)
+        xc = jnp.einsum("bnd,bkd->bnk", samples, centers, precision=hi)
         d = x2 - 2 * xc + c2
         assign = jnp.argmin(d, axis=-1)  # (B, n)
         onehot = jax.nn.one_hot(assign, k, dtype=jnp.float32) * weights[..., None]
-        sums = jnp.einsum("bnk,bnd->bkd", onehot, samples)
+        sums = jnp.einsum("bnk,bnd->bkd", onehot, samples, precision=hi)
         cnts = jnp.sum(onehot, axis=1)  # (B, k)
         new = sums / jnp.maximum(cnts, 1.0)[..., None]
         return jnp.where(cnts[..., None] > 0, new, centers)
@@ -93,7 +105,7 @@ def dominant_colors(
     # final assignment for counts
     x2 = jnp.sum(samples * samples, axis=-1, keepdims=True)
     c2 = jnp.sum(centers * centers, axis=-1)[:, None, :]
-    xc = jnp.einsum("bnd,bkd->bnk", samples, centers)
+    xc = jnp.einsum("bnd,bkd->bnk", samples, centers, precision=hi)
     assign = jnp.argmin(x2 - 2 * xc + c2, axis=-1)
     onehot = jax.nn.one_hot(assign, k, dtype=jnp.float32) * weights[..., None]
     counts = jnp.sum(onehot, axis=1)

@@ -4,9 +4,9 @@ The workload's parallelism is data parallelism over page/crop batches
 (SURVEY.md §2.4: the reference is strictly serial; DP over pages is the
 equivalent that matters), plus tensor parallelism over the recognizer's
 wide dense kernels for the training path. Everything routes through
-jax.sharding Meshes + NamedSharding annotations — XLA inserts the ICI
-collectives (psum for DP grads, all-gather/reduce-scatter for TP) from
-the shardings; no hand-written collective calls are needed at this layer.
+jax.sharding Meshes + NamedSharding annotations — XLA inserts the
+collectives (psum for DP grads, all-gather/reduce-scatter for TP) from the
+shardings; no hand-written collective calls are needed at this layer.
 
 Axes:
   data  — batch dimension (pages, crops, text lines)
@@ -24,15 +24,13 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 def init_distributed(coordinator: Optional[str] = None,
                      num_processes: Optional[int] = None,
                      process_id: Optional[int] = None) -> bool:
-    """Multi-process (multi-host / multi-slice) initialization.
+    """Multi-process (multi-host) initialization.
 
     Call ONCE before any backend use on each host of a multi-host
-    deployment. Parameters come from arguments or the standard env vars
-    (SYNAPTA_COORDINATOR / SYNAPTA_NUM_PROCESSES / SYNAPTA_PROCESS_ID,
-    falling back to JAX's own cluster auto-detection for TPU pods). After
-    this, ``jax.devices()`` spans every host's chips: the data meshes
-    below shard pages across the whole pod, with XLA routing intra-slice
-    collectives over ICI and inter-slice traffic over DCN (SURVEY §2.4).
+    deployment. Parameters come from arguments or the env vars
+    SYNAPTA_COORDINATOR / SYNAPTA_NUM_PROCESSES / SYNAPTA_PROCESS_ID.
+    After this, ``jax.devices()`` spans every host's devices: the data
+    meshes below shard pages across all of them (SURVEY §2.4).
 
     Returns True when a multi-process runtime was initialized, False for
     the single-process degenerate case (no coordinator configured) —
@@ -43,8 +41,7 @@ def init_distributed(coordinator: Optional[str] = None,
     processes (4 virtual CPU devices each, gloo collectives) join through
     this function into one 8-device cluster, build the global dp x tp
     mesh, and run the sharded inference + train steps with results
-    matching a single-process run. Real multi-chip TPU pods remain
-    unavailable from this environment; the coordinator handshake, global
+    matching a single-process run: the coordinator handshake, global
     device view, and cross-process collectives are what this validates.
     """
     import os
@@ -160,7 +157,7 @@ def make_inference_fn(apply_fn, mesh: Mesh, params):
     )
 
 
-def make_dp_tp_train_step(model, tx, mesh: Mesh, params):
+def make_dp_tp_train_step(tx, mesh: Mesh, params):
     """Full training step sharded dp x tp: batch on 'data', wide kernels on
     'model', optimizer state mirroring the param layout. XLA derives the
     gradient psum over 'data' and the activation collectives over 'model'
@@ -178,7 +175,7 @@ def make_dp_tp_train_step(model, tx, mesh: Mesh, params):
 
     def step(p, opt_state, imgs, labels, label_lens):
         loss, grads = jax.value_and_grad(ctc_objective)(
-            p, model, imgs, labels, label_lens
+            p, imgs, labels, label_lens
         )
         updates, opt_state = tx.update(grads, opt_state, p)
         p = optax.apply_updates(p, updates)

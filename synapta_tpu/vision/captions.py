@@ -27,8 +27,8 @@ REFERENCE_PHRASES = [
 ]
 
 # Precompiled once: match_caption runs on EVERY text block of every page
-# (detection pass 1), and re.search's per-call flag handling profiled at
-# ~0.3 ms/page on the 1-core bench host.
+# (detection pass 1), where re.search's per-call pattern handling
+# showed in profiles.
 _CAPTION_RES = [
     re.compile(p, re.IGNORECASE | re.DOTALL) for p in CAPTION_PATTERNS
 ]

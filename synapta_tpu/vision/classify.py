@@ -1,11 +1,11 @@
-"""Classification heuristics: decision layer over the TPU feature batch.
+"""Classification heuristics: decision layer over the device feature batch.
 
 Implements the reference's multi-signal subtype/structure decisions
 (ref pdf_image_segmentation.py:1320-1461, 1546-1617, 1656-1838) using the
 numeric features produced in one fused device pass by
 ``synapta_tpu.ops.features.extract_crop_features``. Only threshold
 comparisons, keyword regexes, and component-stat lookups run here — the
-pixel work never leaves HBM.
+pixel work stays on the device.
 """
 from __future__ import annotations
 

@@ -18,7 +18,6 @@ touched only when a detected region is rendered.
 """
 from __future__ import annotations
 
-import io
 import re
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Tuple
@@ -28,7 +27,10 @@ import numpy as np
 from synapta_tpu.config import DetectionConfig
 from synapta_tpu.io.ingest import Document
 from synapta_tpu.schema import BoundingBox
+from synapta_tpu.utils.log import get_logger
 from synapta_tpu.vision import captions as cap
+
+log = get_logger("detect")
 
 
 @dataclass
@@ -61,6 +63,9 @@ class DetectionEngine:
         # Safe because detect and render run sequentially in the same
         # prepare thread; defaults to `doc` for standalone use.
         self.pixels_doc = pixels_doc or doc
+        # embedded images the engine could not decode (no JPEG 2000 codec,
+        # corrupt or unsupported streams); callers report these as errors
+        self.decode_failures = 0
 
     # ------------------------------------------------------------------ api
 
@@ -91,13 +96,11 @@ class DetectionEngine:
                       dpi: Optional[float] = None) -> Tuple[np.ndarray, bytes]:
         """Rasterize a region and encode PNG (ref _render_region :3638-3657)."""
         dpi = dpi or self.cfg.render_dpi
+        from synapta_tpu.io.ingest import png_encode
+
         arr = self.doc.render(page_num, dpi=dpi,
                               clip=[bbox.x0, bbox.y0, bbox.x1, bbox.y1])
-        from PIL import Image
-
-        bio = io.BytesIO()
-        Image.fromarray(arr).save(bio, format="PNG")
-        return arr, bio.getvalue()
+        return arr, png_encode(arr)
 
     # -------------------------------------------------------------- pass 1
 
@@ -443,10 +446,13 @@ class DetectionEngine:
         for im in self.doc.page_images(page_num):
             bb = im["bbox"]
             bbox = BoundingBox(bb[0], bb[1], bb[2], bb[3], page_w, page_h)
-            pixels = (
-                self.pixels_doc.decode_image(im["obj"]) if im["obj"] else None
-            )
+            if not im["obj"]:
+                continue
+            pixels = self.pixels_doc.decode_image(im["obj"])
             if pixels is None:
+                log.error("page %d: image object %d could not be decoded",
+                          page_num + 1, im["obj"])
+                self.decode_failures += 1
                 continue
             score, notes, variance = self._validate_embedded(
                 pixels, bbox, page_num, page_h

@@ -3,7 +3,7 @@
 The old-algorithm variant's CPU-hot path
 (ref pdf_image_segmentation_old_algo.py:888-1010: process_chart_specific /
 process_diagram_specific / process_image_specific / process_figure_specific)
-rebuilt over the batched TPU feature pass: every pixel statistic comes from
+rebuilt over the batched device feature pass: every pixel statistic comes from
 ``extract_crop_features``; only string logic runs here. Also provides the
 heuristic VisualType classifier used when the vision LLM is disabled — an
 upgrade over the reference's blanket FIGURE/0.3 fallback (ref :701-715),

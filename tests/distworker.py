@@ -51,7 +51,7 @@ def run_workload() -> dict:
     import optax
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from synapta_tpu.models.recognizer import Recognizer
+    from synapta_tpu.models.recognizer import init_recognizer, recognize
     from synapta_tpu.parallel.mesh import (
         data_sharded,
         make_dp_tp_train_step,
@@ -61,12 +61,10 @@ def run_workload() -> dict:
     )
 
     H, W, B, L = 32, 64, 8, 8
-    model = Recognizer()
     mesh = make_mesh(8, model_axis=2)  # global dp=4 x tp=2
 
     def init_fn():
-        return model.init(jax.random.PRNGKey(0),
-                          jnp.zeros((2, H, W, 1)))["params"]
+        return init_recognizer(jax.random.PRNGKey(0), width=W)
 
     shapes = jax.eval_shape(init_fn)
     pshard = params_shardings(shapes, mesh)
@@ -88,14 +86,14 @@ def run_workload() -> dict:
 
     chk_fn = jax.jit(
         lambda p, x: jnp.mean(jnp.abs(
-            model.apply({"params": p}, x).astype(jnp.float32))),
+            recognize(p, x).astype(jnp.float32))),
         in_shardings=(pshard, data_sharded(mesh)),
         out_shardings=replicated(mesh),
     )
     chk = float(np.asarray(chk_fn(params, imgs).addressable_data(0)))
 
     tx = optax.adam(1e-3)
-    step = make_dp_tp_train_step(model, tx, mesh, shapes)
+    step = make_dp_tp_train_step(tx, mesh, shapes)
     oshard = jax.tree.map(
         lambda _: replicated(mesh), jax.eval_shape(tx.init, shapes),
         is_leaf=lambda x: hasattr(x, "shape"),

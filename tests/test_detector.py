@@ -47,15 +47,14 @@ def test_det_batch_targets():
 def test_db_loss_decreases_on_perfect_prediction():
     import jax.numpy as jnp
 
-    from synapta_tpu.models.detector import Detector, db_loss
+    import jax
+
+    from synapta_tpu.models.detector import db_loss, init_detector
 
     rng = np.random.default_rng(2)
     imgs, prob_t, band, thr_t = make_det_batch(rng, batch=1, size=128)
-    model = Detector()
-    import jax
-
-    params = model.init(jax.random.PRNGKey(0), jnp.asarray(imgs))["params"]
-    loss = db_loss(params, model, jnp.asarray(imgs), jnp.asarray(prob_t),
+    params = init_detector(jax.random.PRNGKey(0))
+    loss = db_loss(params, jnp.asarray(imgs), jnp.asarray(prob_t),
                    jnp.asarray(band), jnp.asarray(thr_t))
     assert np.isfinite(float(loss)) and float(loss) > 0
 

@@ -3,7 +3,7 @@ two-column layouts, rotated axis labels, CMYK-JPEG images, scanned-page
 rasters, and multi-visual pages — layouts the standard synthetic cycle
 never produces, each with exact ground truth.
 
-Detection here is host/native-only (no TPU), so this suite stays fast.
+Detection here is host/native-only (no device work), so this suite stays fast.
 """
 from collections import defaultdict
 

@@ -42,23 +42,15 @@ def test_scanned_page_ocr():
 
 
 def test_scanned_throughput_floor():
-    """VERDICT r3 item 4: dense-scan throughput gets a tested floor.
-
-    On the real TPU the bar is >= 5 pages/s warm (measured 5.2-5.9 at
-    32 pages, vs 1.1 in round 3 — the DB-detect dispatch now reuses one
-    persistent executable and batches once per super-batch). The test
-    suite itself runs CPU-forced, where the same fixture must still
-    clear a sanity floor so a pathological regression (e.g. a per-crop
-    recompile, which measured ~8 s/run) cannot land silently."""
-    import jax
-
+    """Dense-scan throughput gets a tested floor on the CPU backend the
+    suite runs on, so a pathological regression (e.g. a per-crop
+    recompile) cannot land silently. The accelerator's bar lives in
+    chip_smoke.py, which runs the scanned book on the card."""
     from synapta_tpu.eval import evaluate_scanned
 
-    on_tpu = jax.default_backend() == "tpu"
-    pages = 32 if on_tpu else 4
+    pages = 4
     evaluate_scanned(pages=2, seed=3)  # warm the executables
     r = evaluate_scanned(pages=pages, seed=1)
     assert r["scanned_detected"] == pages
     assert r["scanned_ocr_cer"] <= 0.05, r
-    floor = 5.0 if on_tpu else 0.05
-    assert r["scanned_pages_per_s"] >= floor, r
+    assert r["scanned_pages_per_s"] >= 0.05, r

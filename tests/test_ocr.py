@@ -1,4 +1,4 @@
-"""On-TPU OCR stack: recognizer accuracy on synthetic tiles, processor
+"""On-device OCR stack: recognizer accuracy on synthetic tiles, processor
 surface, junk gating, degradation paths."""
 import os
 
@@ -6,6 +6,52 @@ import numpy as np
 import pytest
 
 from synapta_tpu.models.train import WEIGHTS_PATH
+
+
+def _line_tile_reference(cfg, crop, box, ctx=None):
+    """Python + Pillow reference for one OCR line tile: the recognizer was
+    trained on tiles built exactly this way (integer luma, 1-99 percentile
+    stretch, Pillow BILINEAR resize to the tile height, white padding).
+    ``ctx`` = (hires_image, ratio) cuts the tile from the hires render."""
+    from PIL import Image
+
+    target_h = cfg.line_height - 4
+    x0, y0, x1, y1 = box
+    src = crop
+    if ctx is not None:
+        hires, ratio = ctx
+        if hires is not None and ratio > 1.001:
+            src = hires
+            x0 = int(x0 * ratio)
+            y0 = int(y0 * ratio)
+            x1 = int(np.ceil(x1 * ratio))
+            y1 = int(np.ceil(y1 * ratio))
+    pad = 2
+    yy0 = max(0, y0 - pad)
+    xx0 = max(0, x0 - pad)
+    # a fully-off-image box yields an EMPTY slice (white tile), not a
+    # wrap-around through numpy's negative indexing
+    yy1 = max(0, min(src.shape[0], y1 + pad))
+    xx1 = max(0, min(src.shape[1], x1 + pad))
+    sub = src[yy0:yy1, xx0:xx1]
+    if sub.size == 0:
+        sub = np.full((8, 8, 3), 255, np.uint8)
+    s16 = sub.astype(np.uint16)
+    gray = ((77 * s16[..., 0] + 150 * s16[..., 1] + 29 * s16[..., 2])
+            >> 8).astype(np.uint8)
+    cum = np.cumsum(np.bincount(gray.ravel(), minlength=256))
+    n_px = cum[-1]
+    lo = float(np.searchsorted(cum, 0.01 * n_px))
+    hi = float(np.searchsorted(cum, 0.99 * n_px))
+    if hi - lo > 30.0:
+        gray = np.clip((gray.astype(np.float32) - lo) * (255.0 / (hi - lo)),
+                       0.0, 255.0).astype(np.uint8)
+    h, w = gray.shape
+    new_w = max(1, min(int(w * target_h / max(h, 1)), cfg.line_max_width))
+    img = Image.fromarray(gray).resize((new_w, target_h), Image.BILINEAR)
+    tile = np.full((cfg.line_height, cfg.line_max_width), 255, np.uint8)
+    tile[2:2 + target_h, :new_w] = np.asarray(img)
+    return tile
 
 needs_weights = pytest.mark.skipif(
     not os.path.exists(WEIGHTS_PATH), reason="weights not trained"
@@ -106,22 +152,15 @@ def test_old_algo_client_fallbacks():
 
 def test_native_line_tiles_bit_identical_to_python():
     """The native batched tile builder (io/ingest.line_tiles_native,
-    native/src/api.cc spdf_line_tiles) must reproduce TPUOCR._line_tile
-    bit-for-bit: the recognizer was trained on the Python/PIL tiles, so
-    any resampling drift is silent accuracy loss. Covers random noise,
+    native/src/api.cc spdf_line_tiles) must reproduce the Python/Pillow
+    reference tile bit-for-bit: the recognizer was trained on such tiles,
+    so any resampling drift is silent accuracy loss. Covers random noise,
     text-like strokes, off-image boxes, degenerate boxes, and hires-ratio
     scaled boxes."""
     from synapta_tpu.config import OCRConfig
     from synapta_tpu.io.ingest import line_tiles_native
-    from synapta_tpu.ocr.processor import TPUOCR
 
     cfg = OCRConfig()
-
-    class Shim:
-        pass
-
-    shim = Shim()
-    shim.cfg = cfg
     rng = np.random.default_rng(7)
     for trial in range(60):
         H = int(rng.integers(8, 700))
@@ -146,7 +185,7 @@ def test_native_line_tiles_bit_identical_to_python():
                                 cfg.line_max_width)
         assert res is not None, "native engine missing spdf_line_tiles"
         tiles, cw = res
-        py = np.stack([TPUOCR._line_tile(shim, img, list(b))
+        py = np.stack([_line_tile_reference(cfg, img, list(b))
                        for b in boxes])
         assert np.array_equal(py, tiles), f"tile drift on trial {trial}"
         assert (cw >= 1).all() and (cw <= cfg.line_max_width).all()
@@ -154,8 +193,8 @@ def test_native_line_tiles_bit_identical_to_python():
 
 def test_crop_tiles_matches_line_tile_with_hires_ctx():
     """_crop_tiles (the batched call site) applies the same hires-ratio
-    box scaling _line_tile did, so pixels are identical both with and
-    without a render ctx."""
+    box scaling as the reference tile, so pixels are identical both with
+    and without a render ctx."""
     from synapta_tpu.config import OCRConfig
     from synapta_tpu.ocr.processor import TPUOCR
 
@@ -167,6 +206,6 @@ def test_crop_tiles_matches_line_tile_with_hires_ctx():
     segs = [[10, 20, 120, 40], [0, 0, 259, 25], [200, 150, 260, 180]]
     for ctx in (None, (hires, 2.0)):
         batched = TPUOCR._crop_tiles(shim, crop, segs, ctx)
-        single = [TPUOCR._line_tile(shim, crop, s, ctx) for s in segs]
+        single = [_line_tile_reference(shim.cfg, crop, s, ctx) for s in segs]
         for b, s in zip(batched, single):
             assert np.array_equal(b, s)

@@ -1,4 +1,4 @@
-"""TPU ops + classification heuristics: correctness and decision parity on
+"""Device ops + classification heuristics: correctness and decision parity on
 synthetic crops with known ground truth (and cv2 cross-checks where the
 environment provides OpenCV)."""
 import numpy as np

@@ -7,7 +7,7 @@ import numpy as np
 import pytest
 
 from synapta_tpu.models import charset
-from synapta_tpu.models.recognizer import Recognizer
+from synapta_tpu.models.recognizer import init_recognizer, recognize
 from synapta_tpu.parallel.mesh import (
     data_sharded,
     make_mesh,
@@ -32,10 +32,10 @@ def test_charset_roundtrip():
 
 
 def test_recognizer_shapes():
-    model = Recognizer(dim=64, blocks=1)
     x = np.zeros((2, 32, 128, 1), np.float32)
-    params = model.init(jax.random.PRNGKey(0), x)["params"]
-    logits = model.apply({"params": params}, x)
+    params = init_recognizer(jax.random.PRNGKey(0), width=128, dim=64,
+                             blocks=1)
+    logits = recognize(params, x)
     assert logits.shape == (2, 32, charset.NUM_CLASSES)  # T = W/4
     assert logits.dtype == np.float32
 
@@ -45,9 +45,8 @@ def test_mesh_dp_tp_shardings():
         pytest.skip("needs 8 virtual devices")
     mesh = make_mesh(8, model_axis=2)
     assert dict(mesh.shape) == {"data": 4, "model": 2}
-    model = Recognizer(dim=128, blocks=1)
-    x = np.zeros((2, 32, 128, 1), np.float32)
-    params = model.init(jax.random.PRNGKey(0), x)["params"]
+    params = init_recognizer(jax.random.PRNGKey(0), width=128, dim=128,
+                             blocks=1)
     sharded = shard_params(params, mesh)
     specs = params_shardings(params, mesh)
     # at least one wide kernel actually TP-sharded
@@ -57,7 +56,7 @@ def test_mesh_dp_tp_shardings():
     batch = shard_batch(np.zeros((8, 32, 128, 1), np.float32), mesh)
     assert batch.sharding == data_sharded(mesh)
     # forward under shardings compiles and runs
-    out = jax.jit(lambda p, b: model.apply({"params": p}, b))(sharded, batch)
+    out = jax.jit(recognize)(sharded, batch)
     assert out.shape == (8, 32, charset.NUM_CLASSES)
 
 

@@ -9,7 +9,7 @@ the full 591) and runs the full pipeline: every page must yield an
 embedded-image segment, zero errors may be swallowed, and OCR /
 classification must produce sane, non-degenerate output.
 
-Full-corpus (591-page) results are recorded in ROUND5.md; this is the
+`scripts/real_corpus_r5.py` runs the full corpus; this is the
 suite-sized guard that the real-data path stays green.
 """
 import importlib.util
